@@ -1,10 +1,10 @@
-"""epsilon_tpu: a TPU-native general convex programming framework.
+"""epsilon_tpu: general convex programming on a GPU, in JAX.
 
 A from-scratch re-design of Epsilon (mfouda/epsilon): a DCP frontend compiles
 convex problems into prox-affine form ``minimize sum_i f_i(H_i(x)) s.t.
 sum_i A_i x_i = b``; a JAX operator library evaluates the proximal operators
 and structured linear maps; ADMM operator-splitting loops run entirely on
-device under ``jit``, sharded consensus-style across a TPU mesh.
+device under ``jit``, sharded consensus-style across a device mesh.
 
 Public API mirrors ``python/epopt/__init__.py``::
 

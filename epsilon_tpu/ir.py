@@ -1,6 +1,6 @@
 """Prox-affine intermediate representation.
 
-TPU-native replacement for the reference's protobuf IR
+Accelerator-native replacement for the reference's protobuf IR
 (``proto/epsilon/expression.proto``): instead of serialized protos crossing a
 C++ boundary, the compiled problem is a host-side Python structure holding
 structured linear operators (:mod:`epsilon_tpu.ops.linop`) and concrete

@@ -1,25 +1,29 @@
 """Native (C++) host kernels with pure-Python fallbacks.
 
 The reference's native surface is its C++/Eigen core plus the glmgen
-``tf_dp`` C kernel; here the TPU compute path is JAX/XLA, and the native
+``tf_dp`` C kernel; here the device compute path is JAX/XLA, and the native
 layer covers the *host-side* work the reference also did natively:
 
 - ``tv1d_prox``      exact taut-string TV prox (tf_dp equivalent)
 - ``min_fill_order`` block-Cholesky symbolic elimination ordering
 
-Build: ``python -m epsilon_tpu.native.build`` (g++ -O3 -shared).  All
-callers fall back to the numpy implementations when the library is absent.
+The library is built from ``*.cc`` at first use (or ahead of time with
+``python -m epsilon_tpu.native.build``); it is never committed.  All callers
+fall back to the numpy implementations when it cannot be built.
 """
 
 from __future__ import annotations
 
 import ctypes
+import logging
 import os
+import subprocess
 from typing import Optional
 
 import numpy as np
 
-_LIB_PATH = os.path.join(os.path.dirname(__file__), "libepsilon_native.so")
+from .build import OUT as _LIB_PATH, build as _build
+
 _lib: Optional[ctypes.CDLL] = None
 _checked = False
 
@@ -30,7 +34,12 @@ def _load() -> Optional[ctypes.CDLL]:
         return _lib
     _checked = True
     if not os.path.exists(_LIB_PATH):
-        return None
+        try:
+            _build(verbose=False)
+        except (OSError, subprocess.CalledProcessError) as e:
+            logging.getLogger("epsilon_tpu").warning(
+                "native library build failed (%s); using numpy fallbacks", e)
+            return None
     try:
         lib = ctypes.CDLL(_LIB_PATH)
         lib.tv1d_prox.argtypes = [

@@ -4,7 +4,7 @@
 // glmgen tf_dp (linked at Makefile:100-101, used by
 // src/epsilon/prox/total_variation_1d.cc): direct non-iterative taut-string
 // algorithm, O(n) time / O(1) extra space.  Used as the exact host path and
-// test oracle; the TPU hot loop uses the FFT-based ADMM kernel
+// test oracle; the device hot loop uses the FFT-based ADMM kernel
 // (epsilon_tpu/ops/prox/tv1d.py).
 
 #include <cstdint>

@@ -1,6 +1,6 @@
 """Block LDL^T factorization with min-fill pivot ordering.
 
-TPU-native re-design of ``src/epsilon/vector/block_cholesky.{h,cc}``: the
+Accelerator-native re-design of ``src/epsilon/vector/block_cholesky.{h,cc}``: the
 symbolic analysis (greedy min-fill ordering using the structured-operator
 nonzero cost model, ``block_cholesky.cc:11-64``) and the numeric elimination
 (Schur complement ``A <- A - V D^{-1} V^T``, ``:119-133``) both run eagerly on

@@ -1,6 +1,6 @@
 """Matrix (orthogonally invariant) proximal operators.
 
-TPU-native re-design of ``ortho_invariant.{h,cc}``: eigendecompose the
+Accelerator-native re-design of ``ortho_invariant.{h,cc}``: eigendecompose the
 symmetric(ized) argument — batched ``jnp.linalg.eigh`` on device — apply a
 *vector* prox to the spectrum, reconstruct.  Valid by the Lewis/Davis
 theorem for spectral functions f(X) = phi(eig(X)) with symmetric phi.
@@ -24,16 +24,39 @@ def _sym(V):
     return 0.5 * (V + jnp.swapaxes(V, -1, -2))
 
 
+def _nonzero_sym(V):
+    """The symmetric part of V, with each all-zero matrix replaced by the
+    identity, and a mask of those matrices.  XLA:GPU's eigh returns NaN
+    eigenvalues for an all-zero matrix larger than 32x32 (measured on an
+    H100), and ADMM starts every prox input at zero; the identity's
+    eigenvectors serve the zero matrix too."""
+    S = _sym(V)
+    zero = jnp.all(S == 0, axis=(-2, -1))
+    eye = jnp.eye(S.shape[-1], dtype=S.dtype)
+    return jnp.where(zero[..., None, None], eye, S), zero
+
+
+def _eigh(V):
+    S, zero = _nonzero_sym(V)
+    d, U = jnp.linalg.eigh(S)
+    return jnp.where(zero[..., None], 0.0, d), U
+
+
+def _eigvalsh(V):
+    S, zero = _nonzero_sym(V)
+    return jnp.where(zero[..., None], 0.0, jnp.linalg.eigvalsh(S))
+
+
 def _spectral_prox(V, prox_eigs):
     """U diag(prox(d)) U^T on the symmetric part of V
     (``ortho_invariant.cc:30-50``)."""
-    d, U = jnp.linalg.eigh(_sym(V))
+    d, U = _eigh(V)
     x = prox_eigs(d)
     return (U * x[..., None, :]) @ jnp.swapaxes(U, -1, -2)
 
 
 def _spectral_epi(V, s, epi_eigs):
-    d, U = jnp.linalg.eigh(_sym(V))
+    d, U = _eigh(V)
     x, t = epi_eigs(d, s)
     return (U * x[..., None, :]) @ jnp.swapaxes(U, -1, -2), t
 
@@ -55,7 +78,7 @@ def prox_neg_log_det(V, lam):
 
 
 def eval_neg_log_det(X):
-    d = jnp.linalg.eigvalsh(_sym(X))
+    d = _eigvalsh(X)
     return -jnp.sum(jnp.log(d))
 
 
@@ -72,7 +95,7 @@ def prox_lambda_max(V, lam):
 
 
 def eval_lambda_max(X):
-    return jnp.max(jnp.linalg.eigvalsh(_sym(X)))
+    return jnp.max(_eigvalsh(X))
 
 
 def epi_lambda_max(V, s):
@@ -110,7 +133,7 @@ def epi_norm_nuclear(V, s):
 # The reference has NO direct kernel — it falls back to an (m+n)x(m+n) SDP
 # embedding (``conic.py:176-186`` transform_sigma_max), which costs a full
 # eigh of the embedding per ADMM iteration plus m^2+n^2 extra variables.
-# Direct TPU kernel: sigma_max = ||sigma(X)||_inf is an absolutely symmetric
+# Direct kernel: sigma_max = ||sigma(X)||_inf is an absolutely symmetric
 # gauge of the spectrum, so by the Lewis/von Neumann transfer theorem its
 # prox is U diag(prox_norm_inf(sigma)) V^T — one SVD, no embedding.
 # ---------------------------------------------------------------------------

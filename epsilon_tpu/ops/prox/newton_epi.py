@@ -2,7 +2,7 @@
 
 Replaces the outer-bisection epigraphs (90-110 fixed outer iterations, each
 inner call itself a 30-60-iteration Newton prox) with joint Newton on the
-arrowhead KKT system of the projection, the TPU re-design of
+arrowhead KKT system of the projection, the jittable re-design of
 ``NewtonEpigraph`` (``src/epsilon/prox/newton.cc:109-190``):
 
     minimize ||x - v||^2/2 + (t - s)^2/2   s.t.  f(x) <= t
@@ -137,7 +137,7 @@ def implicit_newton_epigraph(v, s, feval: Callable, fgrad: Callable,
     arrowhead Newton there is no line search to stall: a bracket
     [lo (h>0), hi (h<0)] is maintained and out-of-bracket Newton steps fall
     back to doubling/bisection — globally convergent, quadratic near the
-    root.  TPU re-design of ``ImplicitNewton``
+    root.  Jittable re-design of ``ImplicitNewton``
     (``src/epsilon/prox/newton.cc:192-237``)."""
     v = jnp.asarray(v)
     dtype = v.dtype

@@ -305,9 +305,9 @@ class _CollapsedKKT:
     """Explicit solve operator ``x = S v + c`` folded out of a factored
     KKT system by basis solves.  The reference applies its cached LDL^T by
     block substitution every iteration (``block_cholesky.cc:86-137``); on
-    TPU that chain is a dozen small kernel launches and re-reads every
+    a device that chain is a dozen small kernel launches and re-reads every
     factor block from HBM, while the folded form — when it is SMALLER than
-    the factor (``factor_nnz`` cost model) — is ONE MXU matmul per apply."""
+    the factor (``factor_nnz`` cost model) — is ONE matmul per apply."""
 
     def __init__(self, chol, rhs0, out_dims: Dict[str, int],
                  in_dims: Dict[str, int]):
@@ -587,7 +587,7 @@ class SecondOrderConeProxOperator(ProxOperator):
 # *traced* scalar, so residual-balancing adaptive rho (Boyd et al. 3.4.1)
 # costs no refactorization.  The reference cannot do this at all: its
 # factorizations bake sqrt(rho) into the KKT systems (prox_admm.cc:51
-# hard-requires rho == 1).  The TPU-native trick is the same one the
+# hard-requires rho == 1).  The device-side trick is the same one the
 # consensus solver uses: projections are rho-invariant, canonical kernels
 # take lam/rho, and quadratics apply through a cached eigendecomposition
 # (Q diag(1/(w+rho)) Q') instead of a Cholesky factor.

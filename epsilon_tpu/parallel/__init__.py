@@ -1,3 +1,3 @@
 from .consensus import (ConsensusADMM, ConsensusResult, block_mesh,  # noqa: F401
-                        consensus_lasso_solver)
+                        consensus_lasso_solver, local_update_reference)
 from .distributed import initialize_distributed  # noqa: F401

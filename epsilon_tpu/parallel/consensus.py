@@ -1,13 +1,13 @@
-"""Sharded consensus ADMM over a TPU device mesh.
+"""Sharded consensus ADMM over a 1-D device mesh.
 
 This is the realization of the reference's vestigial distributed mode
 (``solver_params.proto:42-56`` consensus knobs, ``solver.proto:51-59``
 ConsensusResiduals, ``solver.proto:17`` num_workers — all dead code there)
-as a first-class TPU-native solver, per the two-block consensus structure
+as a first-class device solver, per the two-block consensus structure
 (``prox_admm_two_block.h:15-25``): the x-update over scenario blocks is
 embarrassingly parallel, so blocks shard across the mesh with ``shard_map``;
 the two reductions ADMM needs per iteration — the consensus average and the
-residual norms — are ``psum`` collectives riding ICI (DCN across hosts).
+residual norms — are ``psum`` collectives (NCCL all-reduces on GPUs).
 
     minimize  sum_i f_i(x_i) + g(z)   s.t.  x_i = z  for all blocks i
 
@@ -32,7 +32,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from .. import config
 
 __all__ = ["ConsensusADMM", "ConsensusResult", "consensus_lasso_solver",
-           "block_mesh"]
+           "block_mesh", "local_update_reference"]
 
 
 def block_mesh(n_devices: Optional[int] = None, axis_name: str = "blocks") -> Mesh:
@@ -73,16 +73,12 @@ class ConsensusADMM:
                  mesh: Optional[Mesh] = None, axis_name: str = "blocks",
                  rel_tol: float = 1e-3, abs_tol: float = 1e-6,
                  max_iterations: int = 10000, epoch_iterations: int = 10,
-                 local_update: Optional[Callable] = None,
                  adaptive_rho: bool = False, rho_mu: float = 10.0,
                  rho_tau: float = 2.0, over_relaxation: float = 1.0):
-        # optional fused override: (data, x, u, z[, rho]) -> (x, sum(x+u));
-        # used by the Pallas-backed consensus lasso path.
         # adaptive_rho: residual balancing (Boyd et al. sec. 3.4.1) — rho is
         # carried in the solver state and local/global proxes must accept it
         # as a trailing argument (use eigendecomposition-based factors so
         # rho changes are free).
-        self.local_update = local_update
         self.adaptive_rho = adaptive_rho
         self.rho_mu, self.rho_tau = rho_mu, rho_tau
         self.over_relaxation = over_relaxation
@@ -108,12 +104,9 @@ class ConsensusADMM:
         self._compiled = None
 
     # -- one sharded iteration (traceable, runs under shard_map) ------------
-    def _local_step(self, data, x, u, z, rho=None):
+    def _local_step(self, data, u, z, rho=None):
         """Executed per device on its block shard."""
-        if self.local_update is not None:
-            args = (data, x, u, z) + ((rho,) if self.adaptive_rho else ())
-            x, xu_local = self.local_update(*args)
-        elif self.adaptive_rho:
+        if self.adaptive_rho:
             v = z[None, :] - u
             x = jax.vmap(self.local_prox, in_axes=(0, 0, None))(v, data, rho)
             xu_local = jnp.sum(x + u, axis=0)
@@ -162,7 +155,7 @@ class ConsensusADMM:
         def body(_, carry):
             x, u, z, _stats, _zp = carry
             zp = z
-            x, u, z, stats = self._local_step(data, x, u, z, rho)
+            x, u, z, stats = self._local_step(data, u, z, rho)
             return x, u, z, stats, zp
 
         x, u, z, stats, z_prev = jax.lax.fori_loop(
@@ -258,9 +251,16 @@ class ConsensusADMM:
             series=np.asarray(series_buf)[:n_epochs])
 
 
+def local_update_reference(Finv, Atb, u, z, rho):
+    """Plain jnp consensus-lasso local update over the block axis:
+    ``x_i = Finv_i (Atb_i + rho (z - u_i))`` and ``sum_i (x_i + u_i)``."""
+    v = z[None, :] - u
+    x = jnp.einsum("sij,sj->si", Finv, Atb + rho * v)
+    return x, jnp.sum(x + u, axis=0)
+
+
 def consensus_lasso_solver(A_blocks, b_blocks, lam: float, rho: float = 1.0,
                            mesh: Optional[Mesh] = None,
-                           use_pallas: str = "auto",
                            adaptive_rho: bool = False, **kwargs
                            ) -> ConsensusADMM:
     """Consensus lasso: minimize sum_i 1/2||A_i x - b_i||^2 + lam ||x||_1,
@@ -268,10 +268,18 @@ def consensus_lasso_solver(A_blocks, b_blocks, lam: float, rho: float = 1.0,
 
     Local prox = cached-Cholesky ridge solve (the factor-once/solve-many
     pattern of ``block_cholesky.cc``, batched over on-device blocks);
-    global prox = soft threshold at lam/(S*rho).
+    global prox = soft threshold at lam/(S*rho).  With a mesh, the blocks
+    are sharded before any product, so each device builds only its own
+    blocks' factors.
     """
-    A_blocks = jnp.asarray(A_blocks)
-    b_blocks = jnp.asarray(b_blocks)
+    if mesh is not None:
+        blocks = NamedSharding(mesh, P(kwargs.get("axis_name", "blocks")))
+        A_blocks = jax.device_put(A_blocks, blocks)
+        b_blocks = jax.device_put(b_blocks, blocks)
+    else:
+        blocks = None
+        A_blocks = jnp.asarray(A_blocks)
+        b_blocks = jnp.asarray(b_blocks)
     S, m, n = A_blocks.shape
 
     # Precompute per-block Cholesky factors of (A'A + rho I): batched,
@@ -302,15 +310,14 @@ def consensus_lasso_solver(A_blocks, b_blocks, lam: float, rho: float = 1.0,
                              mesh=mesh, adaptive_rho=True, **kwargs)
     if config.use_explicit_inverse():
         # factor-once as explicit inverses: the per-iteration solve becomes
-        # a batched MXU matmul (TPUs have no fast triangular solve).  The
-        # inverse batch is computed on the HOST in f64: on-device
-        # jnp.linalg.inv lowers to a vmapped LU whose triangular-solve
-        # temps are O(S n^2 log n) HBM — it OOM'd a 16 GB chip at
-        # S=40, n=5000 where the inverses themselves are only 4 GB
+        # a batched matvec.  The inverse batch is computed on the HOST in
+        # f64: on-device jnp.linalg.inv lowers to a vmapped LU whose
+        # triangular-solve temps are O(S n^2 log n) device memory
         dtype = AtA.dtype
         AtA_h = np.asarray(AtA, dtype=np.float64)
-        Finv = jnp.asarray(
-            np.linalg.inv(AtA_h + rho * np.eye(AtA.shape[-1])).astype(dtype))
+        Finv = np.linalg.inv(AtA_h + rho * np.eye(n)).astype(dtype)
+        Finv = (jnp.asarray(Finv) if blocks is None
+                else jax.device_put(Finv, blocks))
         data = {"Finv": Finv, "Atb": Atb}
 
         def local_prox(v, d):
@@ -329,14 +336,5 @@ def consensus_lasso_solver(A_blocks, b_blocks, lam: float, rho: float = 1.0,
     def global_prox(v):
         return jnp.sign(v) * jnp.maximum(jnp.abs(v) - thresh, 0.0)
 
-    local_update = None
-    if config.use_explicit_inverse() and (
-            use_pallas is True or
-            (use_pallas == "auto" and jax.default_backend() not in ("cpu",))):
-        from ..ops.pallas_kernels import fused_local_update, pallas_supported
-        if pallas_supported(S, n):
-            def local_update(d, x, u, z):
-                return fused_local_update(d["Finv"], d["Atb"], u, z, rho)
-
     return ConsensusADMM(local_prox, global_prox, data, S, n, rho=rho,
-                         mesh=mesh, local_update=local_update, **kwargs)
+                         mesh=mesh, **kwargs)

@@ -1,10 +1,10 @@
 """Multi-host runtime glue.
 
-The reference has no distributed backend (SURVEY §2.4); the TPU-native
-replacement is the JAX multi-controller runtime: every host calls
-:func:`initialize_distributed`, after which ``jax.devices()`` spans the full
-slice and the consensus solvers' ``psum`` reductions ride ICI within a slice
-and DCN across hosts.
+The reference has no distributed backend (SURVEY §2.4); the replacement
+here is the JAX multi-controller runtime: every host calls
+:func:`initialize_distributed`, after which ``jax.devices()`` spans every
+host's devices and the consensus solvers' ``psum`` reductions run as NCCL
+collectives across them.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """ADMM operator-splitting solvers, fully jitted.
 
-TPU-native re-design of ``src/epsilon/algorithms/``:
+Accelerator-native re-design of ``src/epsilon/algorithms/``:
 
 - :class:`ProxADMMTwoBlockSolver` — two-block consensus ADMM
   (``prox_admm_two_block.cc``): x-update applies all prox operators at

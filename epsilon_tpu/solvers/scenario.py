@@ -24,7 +24,7 @@ joint substitution folds them all at once: m = (w_z + sum_g tot_g) /
 accumulates per-shared-var totals before dividing).
 
 (the exact Euclidean projection — substitute x_i = z and complete the
-square), with the cross-device sum a single ``psum`` riding ICI.
+square), with the cross-device sum a single ``psum``.
 
 Isomorphism is decided by jaxpr equality: each candidate term's prox apply
 is traced with its lifted constants as explicit arguments; two terms stack
@@ -33,7 +33,7 @@ constant — scalar alphas, shapes, kernel parameters — so no term can
 silently inherit another's data).
 
 Reference analogue: the vestigial consensus/distributed knobs of
-``solver_params.proto:42-56`` (dead code there), realized TPU-natively.
+``solver_params.proto:42-56`` (dead code there), realized on the device mesh.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 The reference has no on-disk checkpointing — only in-memory warm-start
 caches (``solvemodule.cc:142-155``, ``prox_admm.cc:115-120``).  For
-long-running / preemptible TPU jobs this module adds durable checkpoints of
+long-running / preemptible accelerator jobs this module adds durable checkpoints of
 the ADMM loop state (the ``(z, u[, rho])`` / ``(u, ys)`` pytrees) via orbax,
 so a killed solve resumes from the last saved epoch instead of iteration 0.
 

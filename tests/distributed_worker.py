@@ -3,8 +3,8 @@
 Launched by tests/test_distributed.py: each process owns 4 virtual CPU
 devices; the global mesh spans 8 devices across both processes, so the
 consensus psum reductions exercise the real cross-process collective path
-(gloo) — the CI realization of SURVEY §2.4's multi-host design (ICI/DCN on
-a TPU slice).
+(gloo) — the CI realization of SURVEY §2.4's multi-host design (NCCL
+across GPU hosts).
 
 Usage: python distributed_worker.py <pid> <nprocs> <port> <out.npz>
 """

@@ -2,7 +2,7 @@
 
 The reference hard-requires rho == 1 (``prox_admm.cc:51``) and bakes
 sqrt(rho) into every cached factorization (``prox_admm_two_block.cc:52-88``),
-so it cannot adapt rho at all.  The TPU build carries rho in the jitted loop
+so it cannot adapt rho at all.  This build carries rho in the jitted loop
 state and parameterizes the prox applies by rho:
 
 - projections (ZERO / SOC / epigraphs) are rho-invariant,

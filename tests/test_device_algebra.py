@@ -1,9 +1,10 @@
 """Device-resident dense factor algebra (``ops/linop.py``).
 
-On TPU, compile-time operator algebra (Schur products, explicit inverses)
-runs on the accelerator and its results STAY there — the host tunnel never
-sees an n^2 intermediate.  These tests force that path onto the CPU backend
-(``linop._FORCE_DEVICE_ALGEBRA``) and check it against the numpy oracle.
+On the GPU, compile-time operator algebra (Schur products, explicit
+inverses) runs on the accelerator and its results STAY there — the host
+never sees an n^2 intermediate.  These tests force that path onto the CPU
+backend (``linop._FORCE_DEVICE_ALGEBRA``) and check it against the numpy
+oracle.
 Reference analogue: the eager Eigen products/factors of
 ``src/epsilon/vector/block_cholesky.cc:86-137`` and ``lapack.h:5-13``.
 """
@@ -143,3 +144,61 @@ def test_zero_prox_with_device_algebra(rng, device_algebra):
     x = np.asarray(op.apply(BlockVector({"x": jnp.asarray(v)}))["x"])
     P = np.eye(n) - H.T @ np.linalg.solve(H @ H.T, H)
     assert np.allclose(x, P @ v, atol=1e-7)
+
+
+@pytest.fixture
+def fresh_operand_cache(monkeypatch):
+    monkeypatch.setattr(linop, "_DEVICE_OPERAND_CACHE", {})
+    monkeypatch.setattr(linop, "_DEVICE_OPERAND_LRU", [])
+
+
+def test_device_operand_transpose_view_shares_base(rng, fresh_operand_cache):
+    A = rng.randn(40, 30)
+    assert np.array_equal(np.asarray(linop._device_operand(A.T)), A.T)
+    # the base was uploaded once and serves both A and A.T
+    assert np.array_equal(np.asarray(linop._device_operand(A)), A)
+    assert sum(1 for _, nb in linop._DEVICE_OPERAND_LRU if nb) == 1
+
+
+@pytest.mark.parametrize("view", ["rows", "reversed", "square_copy_view",
+                                  "strided"])
+def test_device_operand_non_transpose_view(rng, fresh_operand_cache, view):
+    """A view that is not its base's transpose uploads its own data (it
+    used to get ``base.T``: wrong data for square matrices)."""
+    B = rng.randn(30, 30)
+    A = {"rows": lambda: B[:20],
+         "reversed": lambda: B[::-1],
+         "square_copy_view": lambda: B[:],
+         "strided": lambda: B[:, ::2]}[view]()
+    assert A.base is B
+    assert np.array_equal(np.asarray(linop._device_operand(A)), A)
+
+
+def test_device_operand_view_through_device_product(rng, device_algebra,
+                                                    fresh_operand_cache):
+    B = rng.randn(30, 30)
+    A = B[::-1]                          # a same-shape, non-transpose view
+    got = linop._dense_product(A, np.eye(30))
+    assert np.allclose(np.asarray(got), A)
+
+
+@pytest.mark.parametrize("mode", ["inverse", "triangular"])
+@pytest.mark.parametrize("kind", ["chol", "lu"])
+def test_factor_apply_modes(rng, monkeypatch, mode, kind):
+    """Cached-factor applies agree with the dense solve in both factor
+    modes, for vectors, blocks and the transpose."""
+    from epsilon_tpu import config
+    from epsilon_tpu.ops.linop import CholFactorOp, LuFactorOp
+    monkeypatch.setattr(config, "FACTOR_SOLVE_MODE", mode)
+    n = 60
+    A = rng.randn(n, n)
+    M = A @ A.T + n * np.eye(n) if kind == "chol" else A + n * np.eye(n)
+    op = CholFactorOp(M) if kind == "chol" else LuFactorOp(M)
+    x, X = rng.randn(n), rng.randn(n, 5)
+    np.testing.assert_allclose(np.asarray(op.matvec(jnp.asarray(x))),
+                               np.linalg.solve(M, x), rtol=1e-8, atol=1e-10)
+    np.testing.assert_allclose(np.asarray(op.matmat(jnp.asarray(X))),
+                               np.linalg.solve(M, X), rtol=1e-8, atol=1e-10)
+    np.testing.assert_allclose(np.asarray(op.T.matvec(jnp.asarray(x))),
+                               np.linalg.solve(M.T, x), rtol=1e-8,
+                               atol=1e-10)

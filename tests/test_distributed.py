@@ -4,7 +4,7 @@ cross-process collectives, and the result must match the single-process
 solve bit-for-bit-close.
 
 This is the CI stand-in for the reference-replacement promise of SURVEY
-§2.4 (multi-host consensus over DCN): same solver code, same psum path,
+§2.4 (multi-host consensus): same solver code, same psum path,
 real process boundary.
 """
 

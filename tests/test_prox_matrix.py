@@ -187,3 +187,30 @@ def test_epi_sigma_max(trial):
     X, t = mx.epi_sigma_max(jnp.asarray(V), s)
     f = lambda z: np.linalg.norm(np.asarray(z).reshape(m, n), 2)
     check_epigraph(f, V.ravel(), s, np.asarray(X).ravel(), float(t), rng=rng)
+
+
+@pytest.mark.parametrize("n", [5, 40])
+@pytest.mark.parametrize("kernel,expect", [
+    ("prox_semidefinite", lambda n, lam: np.zeros((n, n))),
+    ("prox_neg_log_det", lambda n, lam: np.sqrt(lam) * np.eye(n)),
+    ("prox_lambda_max", lambda n, lam: -lam / n * np.eye(n)),
+])
+def test_spectral_prox_at_zero(n, kernel, expect):
+    """ADMM starts every prox input at zero; the spectral kernels must map
+    the zero matrix (alone and in a batch beside a nonzero one) exactly."""
+    lam = 0.7
+    got = np.asarray(getattr(mx, kernel)(jnp.zeros((n, n)), lam))
+    np.testing.assert_allclose(got, expect(n, lam), atol=1e-12)
+    if kernel == "prox_lambda_max":     # vector prox_max takes one spectrum
+        return
+    V = np.stack([np.zeros((n, n)), 2.0 * np.eye(n)])
+    batch = np.asarray(getattr(mx, kernel)(jnp.asarray(V), lam))
+    np.testing.assert_allclose(batch[0], expect(n, lam), atol=1e-12)
+    np.testing.assert_allclose(
+        batch[1], np.asarray(getattr(mx, kernel)(jnp.asarray(V[1]), lam)),
+        atol=1e-12)
+
+
+def test_spectral_eval_at_zero():
+    assert float(mx.eval_lambda_max(jnp.zeros((40, 40)))) == 0.0
+    assert float(mx.eval_neg_log_det(jnp.zeros((40, 40)))) == np.inf

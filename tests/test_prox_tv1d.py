@@ -144,7 +144,7 @@ def test_inner_tol_bounds_work():
 
 
 # ---------------------------------------------------------------------------
-# DR/certified alternative: the MXU conv x-update path (selected at n>=512)
+# DR/certified alternative: the matmul conv x-update path (selected at n>=512)
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("n", [512, 2048])
@@ -171,7 +171,7 @@ def test_conv_solve_batched():
 
 @pytest.mark.parametrize("n", [512, 4096])
 def test_certified_conv_path_matches_taut_string(n):
-    """prox_tv1d_certified switches to the truncated-Toeplitz MXU solve at
+    """prox_tv1d_certified switches to the truncated-Toeplitz matmul solve at
     n >= 512; it must still certify against the exact host oracle."""
     rng = np.random.RandomState(n + 1)
     v = _pw_const(rng, n)

@@ -7,7 +7,7 @@ the mesh axis with ``P(axis)``, folding the tie projection into a psum
 average.  Runs on the virtual 8-device CPU mesh (conftest).
 
 Reference analogue: the distributed-consensus ambitions of
-``solver_params.proto:42-56`` (vestigial there), realized TPU-natively.
+``solver_params.proto:42-56`` (vestigial there), realized on the device mesh.
 """
 
 import numpy as np
